@@ -1,9 +1,9 @@
-"""ecckd_tpu: TPU-native ecCKD gas optics + RTE flux solvers.
+"""ecckd_tpu: ecCKD gas optics + RTE flux solvers in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 earth-system-radiation/rte-ecckd (plus the external rte-rrtmgp solvers it
-depends on), designed TPU-first: functional pytrees, trace-time gas-set
-resolution, associative-scan layer recurrences, column-axis SPMD sharding.
+depends on): functional pytrees, trace-time gas-set resolution, scanned
+layer recurrences, column-axis SPMD sharding.
 """
 from ecckd_tpu.fluxes import FluxesBroadband, heating_rate
 from ecckd_tpu.gases import GasConcs

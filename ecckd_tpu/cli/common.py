@@ -1,9 +1,8 @@
 """Shared driver plumbing for the RFMIP CLI entry points.
 
-Mirrors the reference drivers' structure (/root/reference/example/
-rfmip-rad-irf/ecckd_rfmip_lw.F90, ecckd_rfmip_sw.F90, utils.f90) with
-TPU-native execution: one jitted, column-sharded program instead of a serial
-block loop.
+Mirrors the reference drivers' structure (rte-ecckd/example/
+rfmip-rad-irf/ecckd_rfmip_lw.F90, ecckd_rfmip_sw.F90, utils.f90), with one
+jitted, column-sharded program instead of a serial block loop.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ from typing import Tuple
 import jax
 import numpy as np
 
+from ecckd_tpu.config import setup_compilation_cache
 from ecckd_tpu.gases import GasConcs
 from ecckd_tpu.io.rfmip import RFMIPData, read_rfmip, rfmip_gas_names
 from ecckd_tpu.models.ckd import CKDModel
@@ -24,9 +24,9 @@ from ecckd_tpu.parallel import mesh as pmesh
 
 def make_parser(prog: str) -> argparse.ArgumentParser:
     """CLI compatible with the reference's parse_args (utils.f90:74-134),
-    plus TPU-framework extensions."""
+    plus framework extensions."""
     p = argparse.ArgumentParser(
-        prog=prog, description="TPU-native ecCKD RFMIP flux driver")
+        prog=prog, description="ecCKD RFMIP flux driver")
     p.add_argument("rfmip_file", help="RFMIP input file")
     p.add_argument("ecckd_file", help="ecckd ckd-definition input file")
     p.add_argument("-f", dest="forcing_index", type=int, default=1,
@@ -38,10 +38,6 @@ def make_parser(prog: str) -> argparse.ArgumentParser:
                    help="Working precision (f64 for Fortran-parity runs)")
     p.add_argument("--no-shard", action="store_true",
                    help="Disable column sharding over the device mesh")
-    p.add_argument("--backend", default="auto",
-                   choices=("auto", "fused", "xla"),
-                   help="Compute path: fused Pallas mega-kernels, plain "
-                        "XLA, or auto (fused on TPU at f32)")
     p.add_argument("--metrics-json", default=None,
                    help="Write run metrics (columns/s, flux ranges, "
                         "config) as one JSON file")
@@ -56,23 +52,7 @@ def make_parser(prog: str) -> argparse.ArgumentParser:
     p.add_argument("--validate", action="store_true",
                    help="Validate physical input ranges and assert output "
                         "finiteness (utils/checks.py)")
-    p.add_argument("--fast", action="store_true",
-                   help="1-pass bf16 MXU contraction: ~1.3x faster, "
-                        "~1e-4 broadband-flux error (inside the ckd "
-                        "models' stated 0.05 K/day tolerance); see "
-                        "config.set_mxu_precision")
     return p
-
-
-def setup_compilation_cache() -> None:
-    """Persistent XLA compilation cache: repeat driver/bench runs skip the
-    (remote, ~tens of seconds) TPU compile."""
-    import os
-    cache = os.environ.get("ECCKD_TPU_CACHE",
-                           os.path.expanduser("~/.cache/ecckd_tpu_xla"))
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def setup_distributed(args) -> None:
@@ -94,9 +74,6 @@ def setup_precision(precision: str) -> np.dtype:
 
 def load_inputs(args) -> Tuple[RFMIPData, CKDModel]:
     setup_distributed(args)
-    if getattr(args, "fast", False):
-        from ecckd_tpu.config import set_mxu_precision
-        set_mxu_precision("bf16")
     data = read_rfmip(args.rfmip_file, args.forcing_index)
     print(f" Using 1 fused batch of {data.ncol} columns "
           f"({data.nsite} sites x {data.nexp} experiments)", file=sys.stderr)
@@ -151,59 +128,6 @@ def place_on_mesh(arrays, use_mesh: bool, concs: GasConcs = None):
     return placed, placed_concs, m
 
 
-def is_compile_failure(e: BaseException) -> bool:
-    """Classify an exception as a COMPILE-class failure of the fused Pallas
-    path (Mosaic lowering/compile error, unsupported-op NotImplementedError,
-    XLA compile-time error, VMEM budget exhaustion at kernel compile).
-
-    Only these trigger the auto-path XLA fallback in solve_with_fallback;
-    anything else (a numerics assertion, a FloatingPointError from NaN
-    debugging, a shape/value error in user inputs) is a genuine bug in the
-    run and must propagate — a blanket ``except Exception`` here would mask
-    exactly the jit-vs-eager class of production bug round 2 was about."""
-    qual = f"{type(e).__module__}.{type(e).__name__}"
-    if isinstance(e, NotImplementedError):
-        return True  # Mosaic lowering: unsupported op/shape
-    if "Lowering" in type(e).__name__ or "pallas" in type(e).__module__:
-        return True  # pallas LoweringError family
-    if "XlaRuntimeError" in qual or "JaxRuntimeError" in qual:
-        # Runtime-typed, but Mosaic/XLA report compile failures through the
-        # same exception class — distinguish by message.  Deliberately
-        # narrow: bare INVALID_ARGUMENT / RESOURCE_EXHAUSTED / UNIMPLEMENTED
-        # are XLA's standard statuses for runtime-invalid inputs, device
-        # OOM and missing runtime features, which must propagate.  Only an
-        # explicit compile-phase marker ("Mosaic", "compil...", "lowering")
-        # or Mosaic's distinctive kernel-budget phrase "scoped vmem"
-        # classifies; a runtime message that merely mentions vmem or
-        # UNIMPLEMENTED does not (ADVICE r4: a device error whose text
-        # contains such a token must not be silently rerouted).
-        low = str(e).lower()
-        return ("mosaic" in low or "compil" in low or "lowering" in low
-                or "scoped vmem" in low)
-    return False
-
-
-def solve_with_fallback(solve, backend: str):
-    """Run ``solve(backend)``; when the auto-selected fused Pallas path
-    fails to COMPILE (e.g. a transient remote-compile failure or a Mosaic
-    version skew on an unusual shape), fall back to the always-available
-    XLA path instead of failing the run.  Non-compile failures propagate
-    (see is_compile_failure).  Explicit --backend choices are honored
-    without fallback."""
-    if backend != "auto":
-        return solve(backend)
-    try:
-        return solve("auto")
-    except Exception as e:
-        if not is_compile_failure(e):
-            raise
-        first_line = (str(e).splitlines() or [""])[0]
-        print(" WARNING: fused-kernel path failed to compile "
-              f"({type(e).__name__}: {first_line[:120]}); "
-              "retrying with the XLA path", file=sys.stderr)
-        return solve("xla")
-
-
 class Timer:
     def __init__(self, label: str):
         self.label = label
@@ -230,7 +154,7 @@ def write_metrics(path, *, ncol: int, seconds: float, args, fluxes,
         "seconds": round(seconds, 6),
         "columns_per_sec": round(ncol / max(seconds, 1e-12), 1),
         "n_devices": len(jax.devices()),
-        "backend_requested": args.backend,
+        "device_kind": jax.devices()[0].device_kind,
         "precision": args.precision,
         "flux_up_range": [float(up.min()), float(up.max())],
         "flux_dn_range": [float(dn.min()), float(dn.max())],

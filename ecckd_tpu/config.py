@@ -1,15 +1,20 @@
 """Precision policy and global configuration.
 
 The reference chain computes in Fortran double precision (rte-rrtmgp's default
-``wp``).  On TPU the fast path is float32; float64 is available for validation
+``wp``).  The fast path here is float32; float64 is available for validation
 by enabling JAX x64 mode *before* importing anything that builds arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_CACHE_DIR = os.path.join(REPO_ROOT, ".jax_cache")
+"""Persistent compilation cache when JAX_COMPILATION_CACHE_DIR is unset."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,17 +44,12 @@ def enable_f64_validation_mode() -> None:
     jax.config.update("jax_enable_x64", True)
 
 
-def set_mxu_precision(mode: str) -> None:
-    """Select the fused kernels' MXU contraction mode BEFORE tracing.
-
-    ``bf16x3`` (default): ~f32-exact 3-pass split — the accuracy-faithful
-    path.  ``bf16``: 1-pass fast mode, ~1e-4 broadband-flux error (inside
-    the ckd models' own 0.05 K/day heating-rate tolerance), ~1.3x faster.
-    ``highest``: Mosaic 6-pass f32 (validation experiments).  Equivalent
-    to setting ECCKD_MXU_PRECISION before import; this setter also works
-    after import as long as no jit trace has happened yet.
-    """
-    if mode not in ("bf16x3", "bf16", "highest", "default"):
-        raise ValueError(f"unknown MXU precision mode: {mode!r}")
-    from ecckd_tpu.ops.pallas import common
-    common._MXU_MODE = mode
+def setup_compilation_cache() -> None:
+    """Persistent XLA compilation cache.  Where JAX_COMPILATION_CACHE_DIR is
+    set, JAX reads it itself and nothing is set here; otherwise the cache
+    lives at the fixed path ``<checkout>/.jax_cache`` (the path is part of
+    the cache key, so it must not move between runs)."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

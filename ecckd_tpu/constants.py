@@ -1,7 +1,7 @@
 """Physical constants of the ecCKD gas-optics model.
 
 Values match the reference implementation
-(/root/reference/src/gas_optics_ecckd.f90:51-53) so that optical depths and
+(rte-ecckd/src/gas_optics_ecckd.f90:51-53) so that optical depths and
 Planck sources agree to working precision.
 """
 

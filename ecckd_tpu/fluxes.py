@@ -1,7 +1,7 @@
 """Broadband flux containers and derived diagnostics.
 
 Counterpart of rte-rrtmgp's ``ty_fluxes_broadband`` reducer (use-sites:
-/root/reference/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:108-109) plus the
+rte-ecckd/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:108-109) plus the
 heating-rate diagnostic called for by the accuracy contract of the ckd files
 (the tolerance labels are heating-rate tolerances in K/day; SURVEY.md
 section 6).

@@ -1,8 +1,8 @@
 """Named gas volume-mixing-ratio store.
 
-TPU-native counterpart of rte-rrtmgp's ``ty_gas_concs``
-(use-sites: /root/reference/src/gas_optics_ecckd.f90:329,340-342,351 and
-/root/reference/example/rfmip-rad-irf/mo_rfmip_io.F90:199-260).
+Counterpart of rte-rrtmgp's ``ty_gas_concs``
+(use-sites: rte-ecckd/src/gas_optics_ecckd.f90:329,340-342,351 and
+rte-ecckd/example/rfmip-rad-irf/mo_rfmip_io.F90:199-260).
 
 Design notes (vs the Fortran original):
 * Gas names are *static* pytree metadata, so the requested-gas set is resolved

@@ -2,7 +2,7 @@
 
 The native library is the framework's compiled I/O runtime — the counterpart
 of the netCDF-C/Fortran stack the reference links against
-(/root/reference/Makefile:33, mo_simple_netcdf.F90).  It is optional: if
+(rte-ecckd/Makefile:33, mo_simple_netcdf.F90).  It is optional: if
 ``native/build/libecckd_io.so`` has not been built (``make -C native``),
 callers fall back to scipy.io.netcdf transparently (see the ``_NcFile``
 facade in io/rfmip.py and ``_CkdFile`` in models/loader.py).

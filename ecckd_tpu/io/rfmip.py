@@ -1,7 +1,7 @@
 """RFMIP RAD-IRF input/output.
 
-TPU-native counterpart of the reference RFMIP I/O module
-(/root/reference/example/rfmip-rad-irf/mo_rfmip_io.F90):
+Counterpart of the reference RFMIP I/O module
+(rte-ecckd/example/rfmip-rad-irf/mo_rfmip_io.F90):
 
 * reads the CMIP6 RFMIP atmosphere file (``site`` x ``layer``/``level`` x
   ``expt``), including the quirk that each gas variable's ``units`` attribute

@@ -1,7 +1,7 @@
-"""CKD gas-optics model container (TPU-native pytree).
+"""CKD gas-optics model container (a JAX pytree).
 
 Plays the role of the reference's ``ty_gas_optics_ecckd`` + ``AbsorptionTable``
-types (/root/reference/src/gas_optics_ecckd.f90:13-48), redesigned as an
+types (rte-ecckd/src/gas_optics_ecckd.f90:13-48), redesigned as an
 immutable JAX pytree:
 
 * All lookup tables are array leaves, so a ``CKDModel`` can be passed through
@@ -81,18 +81,6 @@ class CKDModel:
     press_max: float = dataclasses.field(metadata=dict(static=True))
     temp_min: float = dataclasses.field(metadata=dict(static=True))
     temp_max: float = dataclasses.field(metadata=dict(static=True))
-    tables_nonneg: bool = dataclasses.field(default=True,
-                                            metadata=dict(static=True))
-    """True if every coefficient table entry is >= 0 (checked at load);
-    precondition for the fused Pallas gas-optics path (ops/pallas/plan.py)."""
-    grid_key: Tuple[int, ...] = dataclasses.field(
-        default=(), metadata=dict(static=True))
-    """Fingerprint of the (pressure, temperature) interpolation grid,
-    set at load time (models/loader.py): the raw bytes of both grid
-    arrays hashed to a static tuple.  Two models with equal grid_key
-    share interpolation indices, enabling the merged LW+SW kernel
-    (ops/pallas/lwsw.py) to decide mergeability at TRACE time (the grid
-    arrays themselves are tracers under jit)."""
 
     # --- API parity with ty_gas_optics_ecckd ------------------------------
     # (gas_optics_ecckd.f90:477-553)

@@ -1,7 +1,7 @@
 """Public gas-optics API: optical properties + sources from atmospheric state.
 
 Functional equivalents of the reference's type-bound ``gas_optics`` generic
-(/root/reference/src/gas_optics_ecckd.f90:381-473):
+(rte-ecckd/src/gas_optics_ecckd.f90:381-473):
 
 * :func:`gas_optics_lw` ~ ``gas_optics_int`` — optical depth + Planck sources;
 * :func:`gas_optics_sw` ~ ``gas_optics_ext`` — optical depth + Rayleigh,

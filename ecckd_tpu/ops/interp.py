@@ -1,7 +1,7 @@
 """Fractional-index interpolation helpers.
 
 Reproduces the exact index/clamp arithmetic of the reference hot kernel
-(/root/reference/src/gas_optics_ecckd.f90:117-163) in 0-based form:
+(rte-ecckd/src/gas_optics_ecckd.f90:117-163) in 0-based form:
 
 Fortran:  idx = 1 + max(0, min(raw, N - 1.0001));  i0 = int(idx); w1 = idx-i0
 here:     idx = clip(raw, 0, N - 1.0001);          i0 = floor(idx); w1 = idx-i0

@@ -1,8 +1,8 @@
 """Gas optical-depth computation (the hot kernel).
 
-Vectorized TPU-first reimplementation of the reference's
+Vectorized reimplementation of the reference's
 ``calculate_optical_depth`` / ``gas_optical_depth``
-(/root/reference/src/gas_optics_ecckd.f90:64-241,323-376):
+(rte-ecckd/src/gas_optics_ecckd.f90:64-241,323-376):
 
 * The requested-gas set is resolved at *trace time* from the static gas-name
   tuples (unknown gases silently skipped, composite contributes exactly once —

@@ -1,7 +1,7 @@
 """Planck source interpolation.
 
 Vectorized equivalent of the reference ``calculate_planck_function``
-(/root/reference/src/gas_optics_ecckd.f90:245-289):
+(rte-ecckd/src/gas_optics_ecckd.f90:245-289):
 
 * linear interpolation on the 1 K Planck-temperature axis;
 * temperatures *above* the table extrapolate linearly from the last interval

@@ -1,7 +1,7 @@
 """Rayleigh scattering optical depth (shortwave only).
 
 Equivalent of the reference ``calculate_rayleigh_optical_depth``
-(/root/reference/src/gas_optics_ecckd.f90:293-319):
+(rte-ecckd/src/gas_optics_ecckd.f90:293-319):
 tau_ray(col, lay, gpt) = dp/(g * 0.001 * M_air) * rayleigh_coeff(gpt).
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Optical-property containers.
 
 Functional counterparts of rte-rrtmgp's ``ty_optical_props_1scl`` /
-``ty_optical_props_2str`` (use-sites: /root/reference/src/
+``ty_optical_props_2str`` (use-sites: rte-ecckd/src/
 gas_optics_ecckd.f90:5,346,370,457-464 and the drivers).  They are immutable
 pytrees produced by the gas-optics functions and consumed by the solvers; the
 band <-> g-point spectral mapping lives on the ``CKDModel``.

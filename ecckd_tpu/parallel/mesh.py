@@ -1,10 +1,10 @@
 """Device mesh and column sharding.
 
 The physics is column-independent (no cross-column term anywhere in the
-reference, /root/reference/src/gas_optics_ecckd.f90:117-240), so the single
+reference, rte-ecckd/src/gas_optics_ecckd.f90:117-240), so the single
 parallel strategy is *data parallelism over the column axis*: a 1-D named
 mesh ``("columns",)``, every (ncol, ...) array sharded on axis 0, lookup
-tables replicated (they are <= ~3 MB — far below VMEM/HBM concern).  XLA
+tables replicated (they are <= ~3 MB).  XLA
 inserts no collectives in the flux computation itself; only diagnostics
 (max-error, throughput counters) reduce across devices.
 
@@ -86,20 +86,13 @@ def shard_columns_call(fn, mesh: Mesh, args, ncol: int, batch_leaf=None,
     ``args``) to force whole subtrees replicated — REQUIRED when passing
     a model pytree whose table leaves could have a leading extent equal
     to ``ncol`` (e.g. a 12-point h2o mole-fraction axis vs ncol == 12):
-    the heuristic would silently shard such a table over columns.  This
-    is the bridge that lets the fused Pallas kernels — which are
-    per-device programs — scale over a pod slice: each device runs the
-    kernel on its column shard, and no collectives are needed because the
-    physics is column-independent.
+    the heuristic would silently shard such a table over columns.  Each
+    device runs ``fn`` on its column shard as a per-device program; no
+    collectives are needed because the physics is column-independent.
 
     ``ncol`` must divide the mesh size (see shard_batch / pad_columns).
     Outputs must have a leading column axis.
     """
-    try:
-        from jax import shard_map  # JAX >= 0.6
-    except ImportError:  # pragma: no cover - older JAX
-        from jax.experimental.shard_map import shard_map
-
     if batch_leaf is None:
         batch_leaf = (lambda x: hasattr(x, "ndim") and x.ndim >= 1
                       and x.shape[0] == ncol)
@@ -118,20 +111,16 @@ def shard_columns_call(fn, mesh: Mesh, args, ncol: int, batch_leaf=None,
     # check_vma off: scan carries built from replicated inputs (e.g. the
     # zero TOA incidence) trip the varying-manual-axes checker even though
     # the program is valid per-shard.
-    try:
-        wrapped = shard_map(fn, mesh=mesh, in_specs=in_specs,
+    wrapped = jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
                             out_specs=P(COLUMNS), check_vma=False)
-    except TypeError:  # pragma: no cover - older JAX kwarg name
-        wrapped = shard_map(fn, mesh=mesh, in_specs=in_specs,
-                            out_specs=P(COLUMNS), check_rep=False)
     return wrapped(*args)
 
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Multi-host SPMD initialization over ICI/DCN.  No-op when single-host
-    (the common CI / single-chip case)."""
+    """Multi-process SPMD initialization (one process per host).  No-op
+    when single-process (the common CI / single-device case)."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator,

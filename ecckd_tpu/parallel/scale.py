@@ -4,7 +4,7 @@ BASELINE config 5 / SURVEY.md section 5.8: scale the RFMIP workload to
 ~1M replicated columns sharded over a device mesh, streaming the broadband
 flux outputs back to the host *overlapped* with the next chunk's compute.
 The reference has no counterpart (serial Fortran, single address space);
-this is the TPU-native design for the gather/compute-overlap requirement.
+this is the design for the gather/compute-overlap requirement.
 
 How the overlap works (all JAX dispatch is asynchronous):
 
@@ -19,8 +19,7 @@ How the overlap works (all JAX dispatch is asynchronous):
 With the default depth=2 the device pipeline holds dispatch(i),
 compute(i-1) and D2H(i-2) concurrently, so neither a host-side write
 nor one D2H round-trip stalls the device (a single-deep pipeline loses
-one D2H latency per chunk on high-latency transports — measured in
-SCALE_CHIP.json's latency budget).  The host never blocks on in-flight
+one D2H latency per chunk).  The host never blocks on in-flight
 compute.
 """
 from __future__ import annotations
@@ -73,12 +72,11 @@ def stream_chunks(step: Callable, chunks: Iterable[Tuple[tuple, object]],
       depth: in-flight chunks behind the drain point.  depth=2 keeps the
         device pipeline (dispatch i, compute i-1, D2H i-2 in transit)
         full while the host waits on chunk i-2's D2H — a single-deep
-        pipeline stalls the device for one D2H round-trip per chunk on
-        high-latency transports (VERDICT r4 weak #4).
+        pipeline stalls the device for one D2H round-trip per chunk.
 
     Returns timing metrics: total wall seconds plus a per-phase host
     latency budget — dispatch_s (time inside the async ``step`` calls:
-    tracing/arg handling + transport command issue), d2h_issue_s
+    tracing/arg handling + command issue), d2h_issue_s
     (``copy_to_host_async`` enqueueing), drain_wait_s (blocked waiting
     for D2H bytes) and consume_s (host-side writes) — so a below-compute
     streaming rate can be attributed to a specific pipeline phase.
@@ -131,7 +129,7 @@ def run_weak_scaling(step: Callable, chunk_builder: Callable[[int], tuple],
     ``consume`` sink exactly once, in order (the invariant the restart
     journal depends on); best-of-N measurement passes belong in the
     caller (cli/scale_bench.py interleaves them with its compute
-    reference so chip-epoch drift cancels).
+    reference).
 
     Args:
       step: jitted flux step taking the chunk args.

@@ -1,8 +1,8 @@
 """End-to-end RFMIP flux pipelines (jit units).
 
-Each function is one fused, jittable program: gas optics -> solver ->
-broadband fluxes.  This is the TPU replacement for the reference drivers'
-serial block loop (/root/reference/example/rfmip-rad-irf/
+Each function is one jittable program: gas optics -> solver ->
+broadband fluxes, in plain jax.numpy/lax left to XLA.  It replaces the
+reference drivers' serial block loop (rte-ecckd/example/rfmip-rad-irf/
 ecckd_rfmip_lw.F90:105-136): instead of 1800 blocks of one column, the whole
 column batch is a single SPMD computation whose leading axis can be sharded
 over a device mesh (see parallel/mesh.py).
@@ -40,10 +40,10 @@ def map_over_column_chunks(fn, args, ncol: int, chunk: int,
 
     Radiative transfer is embarrassingly parallel over columns but its
     intermediates (per-gas gathered coefficients, per-angle transmittances,
-    two-stream R/T) are O(ncol * nlay * ngpt * n_intermediates); one fused
-    batch of ~10^5 columns exceeds a v5e's HBM.  Chunking bounds peak memory
-    at O(chunk) while the sequential chunk loop keeps the chip busy — the
-    standard microbatching pattern.
+    two-stream R/T) are O(ncol * nlay * ngpt * n_intermediates), so one
+    unchunked batch of ~10^6 columns needs tens of GB of device memory.
+    Chunking bounds peak memory at O(chunk) while the sequential chunk loop
+    keeps the device busy — the standard microbatching pattern.
 
     By default every pytree leaf of ``args`` whose leading axis equals
     ``ncol`` is mapped; everything else (scalars, tables) is closed over.
@@ -92,32 +92,11 @@ def _surface_to_gpt(model: CKDModel, sfc: jax.Array, ncol: int,
     return model.gpt_weights_per_band(sfc)
 
 
-def _use_fused(model: CKDModel, dtype, backend: str, top_at_1: bool) -> bool:
-    """Fused Pallas mega-kernels run on TPU-class backends at f32; the XLA
-    path covers everything else (CPU tests, f64 validation runs)."""
-    if backend not in ("auto", "xla", "fused"):
-        # A typo'd backend string must not silently re-route the compute
-        # path (the CLI parser constrains choices; the library API must
-        # too).
-        raise ValueError(f"unknown backend {backend!r}; "
-                         "expected 'auto', 'xla' or 'fused'")
-    if backend == "xla":
-        return False
-    on_tpu = jax.default_backend() == "tpu"
-    ok = (on_tpu and jnp.dtype(dtype) == jnp.float32 and top_at_1
-          and model.tables_nonneg)
-    if backend == "fused" and not ok:
-        raise ValueError("fused backend requested but unavailable "
-                         f"(backend={jax.default_backend()}, dtype={dtype})")
-    return ok
-
-
 def lw_fluxes(model: CKDModel, plev: jax.Array, tlay: jax.Array,
               tlev: jax.Array, tsfc: jax.Array, sfc_emis: jax.Array,
               gas_concs: GasConcs, n_gauss_angles: int = 1,
               top_at_1: bool = True,
               column_chunk: int | None = None,
-              backend: str = "auto",
               logarithmic_interpolation: bool = False) -> FluxesBroadband:
     """Longwave broadband fluxes for a column batch.
 
@@ -127,43 +106,15 @@ def lw_fluxes(model: CKDModel, plev: jax.Array, tlay: jax.Array,
         argument (ecckd_rfmip_lw.F90:132; band -> g-point expansion as in
         rte-rrtmgp).
       column_chunk: optional microbatch size bounding peak device memory
-        on the XLA path (see map_over_column_chunks); the fused kernel
-        bounds its own memory and ignores it.
-      backend: "auto" | "fused" (Pallas mega-kernel) | "xla".
+        (see map_over_column_chunks).
       logarithmic_interpolation: the reference's alternate log-space table
         interpolation (live API, never selected by its drivers,
-        gas_optics_ecckd.f90:368).  PERMANENTLY XLA-routed by design:
-        in log space each gas's interpolated coefficient must be
-        exponentiated BEFORE the cross-gas sum (gas_optics_ecckd.f90:
-        180-229), so a fused version would add one exp over every
-        contracted table slice per block (~2x the accumulation VPU cost)
-        to a branch no driver or shipped workflow ever selects — the XLA
-        path is the oracle-tested home for it.  Requesting
-        backend="fused" with it is an error.
+        gas_optics_ecckd.f90:368).
     """
-    dtype = jnp.asarray(tlay).dtype
-    if logarithmic_interpolation:
-        if backend == "fused":
-            raise ValueError("logarithmic_interpolation is not supported "
-                             "by the fused kernels; use backend='auto' or "
-                             "'xla'")
-        if backend not in ("auto", "xla"):
-            # Validate BEFORE the xla override: a typo'd backend string
-            # must raise, not silently re-route (same contract as
-            # _use_fused on the non-log path).
-            raise ValueError(f"unknown backend {backend!r}; "
-                             "expected 'auto', 'xla' or 'fused'")
-        backend = "xla"
-    if _use_fused(model, dtype, backend, top_at_1):
-        from ecckd_tpu.ops.pallas.lw import lw_fluxes_fused
-        emis_gpt = _surface_to_gpt(model, sfc_emis, tlay.shape[0], dtype)
-        up, dn = lw_fluxes_fused(model, plev, tlay, tlev, tsfc, emis_gpt,
-                                 gas_concs, n_gauss_angles=n_gauss_angles)
-        return FluxesBroadband(flux_up=up, flux_dn=dn)
     if column_chunk is not None and tlay.shape[0] > column_chunk:
         fn = lambda p, tl, tv, ts, e, c: lw_fluxes(
             model, p, tl, tv, ts, e, c, n_gauss_angles=n_gauss_angles,
-            top_at_1=top_at_1, backend="xla",
+            top_at_1=top_at_1,
             logarithmic_interpolation=logarithmic_interpolation)
         return map_over_column_chunks(
             fn, (plev, tlay, tlev, tsfc, sfc_emis, gas_concs),
@@ -182,7 +133,6 @@ def sw_fluxes(model: CKDModel, plev: jax.Array, tlay: jax.Array,
               gas_concs: GasConcs, sfc_alb: jax.Array, tsi: jax.Array,
               sza_deg: jax.Array, top_at_1: bool = True,
               column_chunk: int | None = None,
-              backend: str = "auto",
               logarithmic_interpolation: bool = False) -> FluxesBroadband:
     """Shortwave broadband fluxes for a column batch.
 
@@ -192,34 +142,13 @@ def sw_fluxes(model: CKDModel, plev: jax.Array, tlay: jax.Array,
         (ecckd_rfmip_sw.F90:135-140).
       tsi: requested total solar irradiance [W m-2], (ncol,).
       sza_deg: solar zenith angle [degrees], (ncol,).
-      column_chunk: optional microbatch size bounding peak device memory
-        on the XLA path; the fused kernel bounds its own memory.
-      backend: "auto" | "fused" (Pallas mega-kernel) | "xla".
-      logarithmic_interpolation: XLA-path-only alternate interpolation;
-        routed to the XLA path explicitly (see lw_fluxes).
+      column_chunk: optional microbatch size bounding peak device memory.
+      logarithmic_interpolation: the reference's alternate interpolation
+        (see lw_fluxes).
     """
-    dtype_in = jnp.asarray(tlay).dtype
-    if logarithmic_interpolation:
-        if backend == "fused":
-            raise ValueError("logarithmic_interpolation is not supported "
-                             "by the fused kernels; use backend='auto' or "
-                             "'xla'")
-        if backend not in ("auto", "xla"):
-            # Validate BEFORE the xla override (see lw_fluxes).
-            raise ValueError(f"unknown backend {backend!r}; "
-                             "expected 'auto', 'xla' or 'fused'")
-        backend = "xla"
-    if _use_fused(model, dtype_in, backend, top_at_1):
-        from ecckd_tpu.ops.pallas.sw import sw_fluxes_fused
-        alb = jnp.asarray(sfc_alb, dtype_in)
-        if alb.ndim == 2:  # banded -> per-g-point (see _surface_to_gpt)
-            alb = _surface_to_gpt(model, alb, tlay.shape[0], dtype_in)
-        up, dn = sw_fluxes_fused(model, plev, tlay, gas_concs, alb,
-                                 tsi, sza_deg)
-        return FluxesBroadband(flux_up=up, flux_dn=dn)
     if column_chunk is not None and tlay.shape[0] > column_chunk:
         fn = lambda p, tl, c, a, t, s: sw_fluxes(
-            model, p, tl, c, a, t, s, top_at_1=top_at_1, backend="xla",
+            model, p, tl, c, a, t, s, top_at_1=top_at_1,
             logarithmic_interpolation=logarithmic_interpolation)
         return map_over_column_chunks(
             fn, (plev, tlay, gas_concs, sfc_alb, tsi, sza_deg),
@@ -251,45 +180,17 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: jax.Array,
                  sfc_emis: jax.Array, gas_concs: GasConcs,
                  sfc_alb: jax.Array, tsi: jax.Array, sza_deg: jax.Array,
                  n_gauss_angles: int = 1, top_at_1: bool = True,
-                 column_chunk: int | None = None, backend: str = "auto"
+                 column_chunk: int | None = None
                  ) -> Tuple[FluxesBroadband, FluxesBroadband]:
     """Both bands' broadband fluxes over ONE atmosphere (the climate-model
-    and RFMIP-benchmark shape of the workload).
-
-    On TPU at f32 with 1-4 Gauss angles and models sharing a (p, T) grid
-    (all shipped ecckd-1.2 file pairs), this runs the MERGED mega-kernel
-    (ops/pallas/lwsw.py): one interpolation-index/one-hot computation and
-    one grid pass serve both bands.  Everything else falls back to
-    lw_fluxes + sw_fluxes.  Returns (lw_fluxes, sw_fluxes)."""
-    dtype = jnp.asarray(tlay).dtype
-    ncol = tlay.shape[0]
-    # Any supported LW quadrature order merges (round 4): 1 angle runs
-    # the fused-forward phase-A form, >1 stage tau/Planck blocked with
-    # per-angle sweeps — both share the single one-hot/interpolation
-    # pass with SW (ops/pallas/lwsw.py).
-    if (n_gauss_angles in (1, 2, 3, 4)
-            and _use_fused(model_lw, dtype, backend, top_at_1)
-            and _use_fused(model_sw, dtype, "auto", top_at_1)):
-        from ecckd_tpu.ops.pallas.lwsw import (lwsw_fluxes_fused,
-                                               models_mergeable)
-        if models_mergeable(model_lw, model_sw):
-            emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype)
-            alb = jnp.asarray(sfc_alb, dtype)
-            if alb.ndim == 2:
-                alb = _surface_to_gpt(model_sw, alb, ncol, dtype)
-            lu, ld, su, sd = lwsw_fluxes_fused(
-                model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt,
-                gas_concs, alb, tsi, sza_deg,
-                n_gauss_angles=n_gauss_angles)
-            return (FluxesBroadband(flux_up=lu, flux_dn=ld),
-                    FluxesBroadband(flux_up=su, flux_dn=sd))
+    and RFMIP-benchmark shape of the workload).  Returns (lw_fluxes,
+    sw_fluxes)."""
     return (lw_fluxes(model_lw, plev, tlay, tlev, tsfc, sfc_emis,
                       gas_concs, n_gauss_angles=n_gauss_angles,
-                      top_at_1=top_at_1, column_chunk=column_chunk,
-                      backend=backend),
+                      top_at_1=top_at_1, column_chunk=column_chunk),
             sw_fluxes(model_sw, plev, tlay, gas_concs, sfc_alb, tsi,
                       sza_deg, top_at_1=top_at_1,
-                      column_chunk=column_chunk, backend=backend))
+                      column_chunk=column_chunk))
 
 
 def clamp_top_pressure(plev: np.ndarray, press_min: float,

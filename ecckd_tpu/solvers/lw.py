@@ -1,7 +1,7 @@
 """Longwave no-scattering flux solver.
 
-TPU-native replacement for the external ``rte_lw`` solver the reference links
-against (/root/reference/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:130-135;
+Replacement for the external ``rte_lw`` solver the reference links
+against (rte-ecckd/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:130-135;
 behavioral contract documented in SURVEY.md section 2.3): per g-point,
 integrate the Schwarzschild equation along 1..4 discrete zenith angles
 (first-order Gaussian quadrature), with a linear-in-tau source inside each

@@ -2,7 +2,7 @@
 
 Secants (diffusivity factors) and weights of the standard quadrature used by
 the external ``rte_lw`` solver the reference links against
-(call site: /root/reference/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:130-135,
+(call site: rte-ecckd/example/rfmip-rad-irf/ecckd_rfmip_lw.F90:130-135,
 ``n_gauss_angles`` = 1 or 3 selected by the ``-p`` physics flag).  The
 one-angle set is the classic 1.66 diffusivity approximation; weights sum to
 1/2 so that an isotropic intensity B integrates to a flux of pi*B under

@@ -4,7 +4,7 @@ The radiative-transfer sweeps are first-order linear recurrences over the
 layer axis: x[k+1] = a[k] * x[k] + b[k].  They are evaluated with a
 ``lax.scan`` over the (tiny, static) layer axis — nlay ~ 60 steps — while the
 column x g-point axes stay fully vectorized, so each step is one wide fused
-VPU op and the whole sweep compiles to a single XLA while-loop.
+elementwise op and the whole sweep compiles to a single XLA while-loop.
 
 (An associative-scan formulation — composing affine maps (a2,b2) o (a1,b1) =
 (a1*a2, a2*b1 + b2) over log2(nlay) doubling levels — was benchmarked first:

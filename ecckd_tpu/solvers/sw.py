@@ -1,7 +1,7 @@
 """Shortwave two-stream + adding flux solver.
 
-TPU-native replacement for the external ``rte_sw`` solver the reference links
-against (call site: /root/reference/example/rfmip-rad-irf/
+Replacement for the external ``rte_sw`` solver the reference links
+against (call site: rte-ecckd/example/rfmip-rad-irf/
 ecckd_rfmip_sw.F90:148-154; behavioral contract in SURVEY.md section 2.3):
 per g-point, two-stream reflectance/transmittance of every layer (direct +
 diffuse), combined into level fluxes by the Shonk & Hogan adding method, with

@@ -9,7 +9,7 @@ Computes, per (column, layer, g-point):
   Rdir, Tdir   : reflectance / *diffuse* transmittance for direct incidence
   Tnoscat      : direct-beam transmittance exp(-tau/mu0)
 
-All expressions are elementwise (VPU work); the layer-coupling recurrences
+All expressions are elementwise; the layer-coupling recurrences
 live in solvers/sw.py.  Energy-safety clamps keep Rdir + Tdir + Tnoscat <= 1
 so single-precision rounding cannot create energy.
 """

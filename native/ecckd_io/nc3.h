@@ -2,7 +2,7 @@
 //
 // Plays the role of the reference chain's compiled I/O stack (netCDF-C +
 // netCDF-Fortran behind mo_simple_netcdf.F90 / mo_rfmip_io.F90,
-// /root/reference/example/rfmip-rad-irf/): a dependency-free reader/writer
+// rte-ecckd/example/rfmip-rad-irf/): a dependency-free reader/writer
 // for the netCDF3 "classic" format (CDF-1) and its 64-bit-offset variant
 // (CDF-2) — the only formats used by the ckd-definition tables, the RFMIP
 // atmosphere file and the CMIP flux outputs.

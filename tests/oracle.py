@@ -1,7 +1,7 @@
 """Pure-NumPy float64 oracle of the ecCKD numerics.
 
 An independent, deliberately *scalar-loop* transcription of the equations
-documented in SURVEY.md section 2.2 (from /root/reference/src/
+documented in SURVEY.md section 2.2 (from rte-ecckd/src/
 gas_optics_ecckd.f90) and of the RTE solver physics (SURVEY.md section 2.3).
 Written in plain per-point style so that vectorization/gather/scan bugs in the
 JAX implementation cannot be mirrored here.

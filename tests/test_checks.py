@@ -1,8 +1,10 @@
-"""utils/checks.py validation semantics + pipeline backend-string guard."""
+"""utils/checks.py validation semantics + the pipelines' single path."""
+import inspect
+
 import numpy as np
 import pytest
 
-from ecckd_tpu.pipeline import _use_fused, clamp_top_pressure
+from ecckd_tpu.pipeline import clamp_top_pressure
 from ecckd_tpu.utils.checks import InputValidationError, validate_inputs
 
 
@@ -38,25 +40,28 @@ def test_validate_rejects_non_monotonic():
 
 
 def test_unknown_backend_string_raises():
-    """A typo'd backend= must error, not silently reroute the compute
-    path (round-5 fix; the CLI parser constrains choices, the library
-    API must too)."""
-    with pytest.raises(ValueError, match="unknown backend"):
-        _use_fused(None, np.float32, "pallas", True)
-    with pytest.raises(ValueError, match="unknown backend"):
-        _use_fused(None, np.float32, "Fused", True)
+    """There is one compute path: the pipelines take no backend argument,
+    so any backend string is refused instead of rerouting the compute."""
+    from ecckd_tpu.pipeline import lw_fluxes, lw_sw_fluxes, sw_fluxes
+    for fn in (lw_fluxes, sw_fluxes, lw_sw_fluxes):
+        assert "backend" not in inspect.signature(fn).parameters
+    tlay = np.zeros((1, 2), np.float32)
+    with pytest.raises(TypeError, match="backend"):
+        lw_fluxes(None, None, tlay, None, None, None, None,
+                  **{"backend": "pallas"})
+    with pytest.raises(TypeError, match="backend"):
+        sw_fluxes(None, None, tlay, None, None, None, None,
+                  **{"backend": "xla"})
 
 
 def test_unknown_backend_with_log_interp_raises():
-    """The logarithmic_interpolation XLA override must not bypass backend
-    validation: a typo'd backend string raises instead of silently
-    re-routing (round-5 review fix; the override runs before _use_fused,
-    so the check lives in the override itself)."""
+    """The logarithmic interpolation branch runs on the same single path:
+    a backend string next to it is refused as well."""
     from ecckd_tpu.pipeline import lw_fluxes, sw_fluxes
     tlay = np.zeros((1, 2), np.float32)
-    with pytest.raises(ValueError, match="unknown backend"):
+    with pytest.raises(TypeError, match="backend"):
         lw_fluxes(None, None, tlay, None, None, None, None,
-                  backend="pallas", logarithmic_interpolation=True)
-    with pytest.raises(ValueError, match="unknown backend"):
+                  logarithmic_interpolation=True, **{"backend": "pallas"})
+    with pytest.raises(TypeError, match="backend"):
         sw_fluxes(None, None, tlay, None, None, None, None,
-                  backend="Fused", logarithmic_interpolation=True)
+                  logarithmic_interpolation=True, **{"backend": "Fused"})

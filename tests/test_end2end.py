@@ -8,7 +8,6 @@ import os
 import numpy as np
 import pytest
 
-from conftest import LW_FSCK, SW_WIDE
 from ecckd_tpu.cli import ecckd_rfmip_lw, ecckd_rfmip_sw
 from ecckd_tpu.io.rfmip import (read_fluxes, read_rfmip,
                                 write_synthetic_rfmip)
@@ -36,8 +35,8 @@ def test_rfmip_reader_units_scaling(rfmip_file):
     assert data.top_at_1
 
 
-def test_lw_driver_end_to_end(rfmip_file, tmp_path):
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "-p", "1",
+def test_lw_driver_end_to_end(ckd_paths, rfmip_file, tmp_path):
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "-p", "1",
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     assert rc == 0
@@ -60,15 +59,15 @@ def test_lw_driver_end_to_end(rfmip_file, tmp_path):
             / approx_planck < 0.02).all()
 
 
-def test_lw_driver_physics_index_2(rfmip_file, tmp_path):
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "-p", "2",
+def test_lw_driver_physics_index_2(ckd_paths, rfmip_file, tmp_path):
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "-p", "2",
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     assert rc == 0
     up3 = read_fluxes(
         str(tmp_path / "rlu_Efx_RTE-ecckd_rad-irf_r1i1p2f1_gn.nc"), "rlu")
     # 3-angle quadrature differs from 1-angle but not wildly.
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "-p", "1",
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "-p", "1",
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     up1 = read_fluxes(
@@ -77,8 +76,8 @@ def test_lw_driver_physics_index_2(rfmip_file, tmp_path):
     np.testing.assert_allclose(up1, up3, rtol=0.05)
 
 
-def test_sw_driver_end_to_end(rfmip_file, tmp_path):
-    rc = ecckd_rfmip_sw.main([rfmip_file, SW_WIDE,
+def test_sw_driver_end_to_end(ckd_paths, rfmip_file, tmp_path):
+    rc = ecckd_rfmip_sw.main([rfmip_file, ckd_paths["sw_wide"],
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     assert rc == 0
@@ -101,18 +100,19 @@ def test_sw_driver_end_to_end(rfmip_file, tmp_path):
     assert (up[~night, 0] < dn[~night, 0]).all()
 
 
-def test_combined_driver_matches_separate(rfmip_file, tmp_path):
+def test_combined_driver_matches_separate(ckd_paths, rfmip_file, tmp_path):
     """The combined lw+sw driver's four flux files must equal the two
     separate drivers' outputs on the same inputs."""
     from ecckd_tpu.cli import ecckd_rfmip
     sep = tmp_path / "sep"
     both = tmp_path / "both"
-    assert ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "--output-dir",
-                                str(sep), "--precision", "f64"]) == 0
-    assert ecckd_rfmip_sw.main([rfmip_file, SW_WIDE, "--output-dir",
-                                str(sep), "--precision", "f64"]) == 0
-    assert ecckd_rfmip.main([rfmip_file, LW_FSCK, SW_WIDE, "--output-dir",
-                             str(both), "--precision", "f64",
+    lw, sw = ckd_paths["lw_fsck"], ckd_paths["sw_wide"]
+    assert ecckd_rfmip_lw.main([rfmip_file, lw, "--output-dir", str(sep),
+                                "--precision", "f64"]) == 0
+    assert ecckd_rfmip_sw.main([rfmip_file, sw, "--output-dir", str(sep),
+                                "--precision", "f64"]) == 0
+    assert ecckd_rfmip.main([rfmip_file, lw, sw, "--output-dir", str(both),
+                             "--precision", "f64",
                              "--heating-rates"]) == 0
     for name, var in (("rlu", "rlu"), ("rld", "rld"), ("rsu", "rsu"),
                       ("rsd", "rsd")):
@@ -124,14 +124,14 @@ def test_combined_driver_matches_separate(rfmip_file, tmp_path):
     assert (both / "hrs_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc").exists()
 
 
-def test_forcing_index_2_uses_cfc11eq(rfmip_file, tmp_path):
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "-f", "2",
+def test_forcing_index_2_uses_cfc11eq(ckd_paths, rfmip_file, tmp_path):
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "-f", "2",
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     assert rc == 0
     up_f2 = read_fluxes(
         str(tmp_path / "rlu_Efx_RTE-ecckd_rad-irf_r1i1p1f2_gn.nc"), "rlu")
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "-f", "1",
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "-f", "1",
                               "--output-dir", str(tmp_path),
                               "--precision", "f64"])
     up_f1 = read_fluxes(
@@ -158,13 +158,12 @@ def test_write_into_existing_template(tmp_path):
     np.testing.assert_array_equal(got, flux)
 
 
-def test_pipeline_banded_surfaces():
+def test_pipeline_banded_surfaces(ckd_paths):
     """Banded (ncol, nband) emissivity/albedo through the pipelines matches
     manual band->g-point expansion through the solvers (the reference
     solver API's sfc_emis(nband, ncol) / sfc_alb_dir(nband, ncol) shape,
     SURVEY.md section 2.3)."""
-    import numpy as np
-    from conftest import LW_RRTMGP, SW_WIDE, RFMIP_VMRS, make_atmosphere
+    from conftest import RFMIP_VMRS, make_atmosphere
     from ecckd_tpu.gases import GasConcs
     from ecckd_tpu.models.gas_optics import gas_optics_lw, gas_optics_sw
     from ecckd_tpu.models.loader import load_ckd_model
@@ -176,10 +175,11 @@ def test_pipeline_banded_surfaces():
                              **RFMIP_VMRS})
     rng = np.random.default_rng(2)
 
-    model = load_ckd_model(LW_RRTMGP, dtype=np.float64)  # 16 bands
+    model = load_ckd_model(ckd_paths["lw_rrtmgp"],
+                           dtype=np.float64)  # 16 bands
     emis_band = rng.uniform(0.7, 1.0, (3, model.nband))
     f = lw_fluxes(model, atm["plev"], atm["tlay"], atm["tlev"], atm["tsfc"],
-                  emis_band, concs, backend="xla")
+                  emis_band, concs)
     props, sources = gas_optics_lw(model, atm["plev"], atm["tlay"],
                                    atm["tsfc"], concs, atm["tlev"])
     emis_gpt = np.asarray(model.gpt_weights_per_band(emis_band))
@@ -187,14 +187,13 @@ def test_pipeline_banded_surfaces():
     np.testing.assert_allclose(np.asarray(f.flux_up), np.asarray(up_ref),
                                rtol=1e-12)
 
-    swm = load_ckd_model(SW_WIDE, dtype=np.float64)  # 5 bands
+    swm = load_ckd_model(ckd_paths["sw_wide"], dtype=np.float64)  # 5 bands
     alb_band = rng.uniform(0.05, 0.6, (3, swm.nband))
     fs = sw_fluxes(swm, atm["plev"], atm["tlay"], concs, alb_band,
-                   np.full(3, 1361.0), np.array([20.0, 60.0, 80.0]),
-                   backend="xla")
+                   np.full(3, 1361.0), np.array([20.0, 60.0, 80.0]))
     fs_const = sw_fluxes(swm, atm["plev"], atm["tlay"], concs,
                          np.full(3, 0.3), np.full(3, 1361.0),
-                         np.array([20.0, 60.0, 80.0]), backend="xla")
+                         np.array([20.0, 60.0, 80.0]))
     # Banded run is finite, differs from constant-albedo run, and matches
     # the constant run when all bands carry the same value.
     assert np.isfinite(np.asarray(fs.flux_up)).all()
@@ -202,15 +201,15 @@ def test_pipeline_banded_surfaces():
                            np.asarray(fs_const.flux_up))
     fs_same = sw_fluxes(swm, atm["plev"], atm["tlay"], concs,
                         np.full((3, swm.nband), 0.3), np.full(3, 1361.0),
-                        np.array([20.0, 60.0, 80.0]), backend="xla")
+                        np.array([20.0, 60.0, 80.0]))
     np.testing.assert_allclose(np.asarray(fs_same.flux_up),
                                np.asarray(fs_const.flux_up), rtol=1e-12)
 
 
-def test_heating_rate_output(rfmip_file, tmp_path):
+def test_heating_rate_output(ckd_paths, rfmip_file, tmp_path):
     """--heating-rates writes an hrl file with plausible K/day values."""
     from ecckd_tpu.io.rfmip import netcdf_file
-    rc = ecckd_rfmip_lw.main([rfmip_file, LW_FSCK, "--output-dir",
+    rc = ecckd_rfmip_lw.main([rfmip_file, ckd_paths["lw_fsck"], "--output-dir",
                               str(tmp_path), "--heating-rates"])
     assert rc == 0
     path = tmp_path / "hrl_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 import oracle
-from conftest import LW_FSCK, LW_RRTMGP, SW_WIDE, RFMIP_VMRS
 from test_gas_optics import model_to_oracle
 from ecckd_tpu.gases import GasConcs
 from ecckd_tpu.models.loader import load_ckd_model
@@ -67,11 +66,11 @@ def random_request(rng, ncol, nlay):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_lw_pipeline_vs_oracle(seed):
+def test_fuzz_lw_pipeline_vs_oracle(ckd_paths, seed):
     rng = np.random.default_rng(1000 + seed)
     ncol = int(rng.integers(1, 6))
     nlay = int(rng.integers(2, 40))
-    ckd = [LW_FSCK, LW_RRTMGP][seed % 2]
+    ckd = ckd_paths[("lw_fsck", "lw_rrtmgp")[seed % 2]]
     model = load_ckd_model(ckd, dtype=np.float64)
     plev, tlay, tlev, tsfc = random_atmosphere(rng, ncol, nlay)
     concs, oracle_req = random_request(rng, ncol, nlay)
@@ -79,7 +78,7 @@ def test_fuzz_lw_pipeline_vs_oracle(seed):
     n_ang = int(rng.choice([1, 2, 3]))
 
     f = lw_fluxes(model, plev, tlay, tlev, tsfc, emis, concs,
-                  n_gauss_angles=n_ang, backend="xla")
+                  n_gauss_angles=n_ang)
 
     mnp = model_to_oracle(model)
     tau = oracle.total_optical_depth(mnp, oracle_req, plev, tlay)
@@ -99,7 +98,7 @@ def test_fuzz_lw_pipeline_vs_oracle(seed):
                                atol=1e-9 * scale, rtol=1e-9)
 
 
-def test_edge_pinned_columns_vs_oracle():
+def test_edge_pinned_columns_vs_oracle(ckd_paths):
     """Inputs pinned EXACTLY at every clamp boundary at once — the random
     fuzz straddles edges statistically; this hits them deterministically:
     layer pressures at/below the grid origin and at/above the grid top,
@@ -108,7 +107,7 @@ def test_edge_pinned_columns_vs_oracle():
     mole-fraction axis ends, and near-zero-thickness layers (dp -> 1e-6 Pa).
     Reference clamps: gas_optics_ecckd.f90:121-128 (N-1.0001),
     :153-163 (vmr floor + N-1.001), :234-238 (neg-tau), :278-285 (Planck)."""
-    model = load_ckd_model(LW_FSCK, dtype=np.float64)
+    model = load_ckd_model(ckd_paths["lw_fsck"], dtype=np.float64)
     logp = np.asarray(model.log_pressure, np.float64)
     tg = np.asarray(model.temperature_grid, np.float64)
     mf = np.asarray(model.lut_mf_grids[0], np.float64)
@@ -163,7 +162,7 @@ def test_edge_pinned_columns_vs_oracle():
     emis = np.array([1.0, 0.5, 0.0])
 
     f = lw_fluxes(model, plev, tlay, tlev, tsfc, emis, concs,
-                  n_gauss_angles=1, backend="xla")
+                  n_gauss_angles=1)
 
     mnp = model_to_oracle(model)
     req = [("h2o", h2o), ("ch4", np.broadcast_to(ch4[:, None],
@@ -189,18 +188,18 @@ def test_edge_pinned_columns_vs_oracle():
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_sw_pipeline_vs_oracle(seed):
+def test_fuzz_sw_pipeline_vs_oracle(ckd_paths, seed):
     rng = np.random.default_rng(2000 + seed)
     ncol = int(rng.integers(1, 6))
     nlay = int(rng.integers(2, 40))
-    model = load_ckd_model(SW_WIDE, dtype=np.float64)
+    model = load_ckd_model(ckd_paths["sw_wide"], dtype=np.float64)
     plev, tlay, _, _ = random_atmosphere(rng, ncol, nlay)
     concs, oracle_req = random_request(rng, ncol, nlay)
     alb = rng.uniform(0.0, 1.0, ncol)
     tsi = rng.uniform(1300.0, 1400.0, ncol)
     sza = rng.uniform(0.0, 130.0, ncol)          # includes night columns
 
-    f = sw_fluxes(model, plev, tlay, concs, alb, tsi, sza, backend="xla")
+    f = sw_fluxes(model, plev, tlay, concs, alb, tsi, sza)
 
     mnp = model_to_oracle(model)
     tau_gas = oracle.total_optical_depth(mnp, oracle_req, plev, tlay)

@@ -2,15 +2,11 @@
 
 The XLA path is pure jnp, so the whole chain — ckd table interpolation,
 Planck sources, solver recurrences (lax.scan), band expansion — is
-differentiable with jax.grad/jacrev/jacfwd.  This is a genuinely
-TPU-framework capability with no counterpart in the Fortran reference
+differentiable with jax.grad/jacrev/jacfwd.  This is a framework
+capability with no counterpart in the Fortran reference
 (adjoints for retrievals, data assimilation, and ML coupling), so it
 gets its own contract tests: every adjoint is validated against central
 finite differences at f64.
-
-Scope note: the fused Pallas kernels define no VJP (they are forward
-production kernels); gradient users run backend="xla", which is exactly
-the f64-capable validation path.
 """
 import numpy as np
 import pytest
@@ -18,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from conftest import LW_FSCK, SW_WIDE, RFMIP_VMRS, make_atmosphere
+from conftest import RFMIP_VMRS, make_atmosphere
 
 from ecckd_tpu.gases import GasConcs
 from ecckd_tpu.models.loader import load_ckd_model
@@ -28,9 +24,9 @@ NCOL, NLAY = 2, 20
 
 
 @pytest.fixture(scope="module")
-def setup():
-    lw = load_ckd_model(LW_FSCK)
-    sw = load_ckd_model(SW_WIDE)
+def setup(ckd_paths):
+    lw = load_ckd_model(ckd_paths["lw_fsck"])
+    sw = load_ckd_model(ckd_paths["sw_wide"])
     atm = make_atmosphere(ncol=NCOL, nlay=NLAY, seed=1)
     return lw, sw, atm
 
@@ -59,8 +55,7 @@ def test_lw_olr_adjoint_wrt_h2o(setup):
 
     def olr(h2o):
         f = lw_fluxes(lw, atm["plev"], atm["tlay"], atm["tlev"],
-                      atm["tsfc"], np.full(NCOL, 0.98), _concs(atm, h2o),
-                      backend="xla")
+                      atm["tsfc"], np.full(NCOL, 0.98), _concs(atm, h2o))
         return jnp.sum(f.flux_up[:, 0])
 
     _check_fd(olr, atm["h2o"], eps=1e-9, rtol=1e-4)
@@ -74,7 +69,7 @@ def test_lw_flux_adjoint_wrt_temperature(setup):
 
     def sfc_dn(tlay):
         f = lw_fluxes(lw, atm["plev"], tlay, atm["tlev"], atm["tsfc"],
-                      np.full(NCOL, 0.98), _concs(atm), backend="xla")
+                      np.full(NCOL, 0.98), _concs(atm))
         return jnp.sum(f.flux_dn[:, -1])
 
     g = _check_fd(sfc_dn, atm["tlay"], eps=1e-4, rtol=1e-4)
@@ -87,7 +82,7 @@ def test_lw_surface_emissivity_adjoint(setup):
 
     def olr(emis):
         f = lw_fluxes(lw, atm["plev"], atm["tlay"], atm["tlev"],
-                      atm["tsfc"], emis, _concs(atm), backend="xla")
+                      atm["tsfc"], emis, _concs(atm))
         return jnp.sum(f.flux_up[:, 0])
 
     g = jax.grad(olr)(jnp.full(NCOL, 0.95))
@@ -104,14 +99,14 @@ def test_sw_adjoints(setup):
 
     def up_toa(h2o):
         f = sw_fluxes(sw, atm["plev"], atm["tlay"], _concs(atm, h2o),
-                      alb, tsi, sza, backend="xla")
+                      alb, tsi, sza)
         return jnp.sum(f.flux_up[:, 0])
 
     _check_fd(up_toa, atm["h2o"], eps=1e-9, rtol=1e-3)
 
     def up_toa_alb(a):
         f = sw_fluxes(sw, atm["plev"], atm["tlay"], _concs(atm), a, tsi,
-                      sza, backend="xla")
+                      sza)
         return jnp.sum(f.flux_up[:, 0])
 
     g = jax.grad(up_toa_alb)(jnp.asarray(alb))
@@ -126,8 +121,7 @@ def test_jacobian_row_shape_and_jit(setup):
     @jax.jit
     def profile(h2o):
         f = lw_fluxes(lw, atm["plev"], atm["tlay"], atm["tlev"],
-                      atm["tsfc"], np.full(NCOL, 0.98), _concs(atm, h2o),
-                      backend="xla")
+                      atm["tsfc"], np.full(NCOL, 0.98), _concs(atm, h2o))
         return f.flux_up[0]          # (nlev,) one column's profile
 
     J = jax.jacrev(profile)(jnp.asarray(atm["h2o"]))

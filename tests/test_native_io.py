@@ -7,8 +7,6 @@ import numpy as np
 import pytest
 from scipy.io import netcdf_file
 
-from conftest import LW_FSCK, LW_RRTMGP, SW_WIDE
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -24,8 +22,9 @@ def _native():
     return nc3_native
 
 
-@pytest.mark.parametrize("path", [LW_FSCK, LW_RRTMGP, SW_WIDE])
-def test_reader_matches_scipy(path):
+@pytest.mark.parametrize("kind", ["lw_fsck", "lw_rrtmgp", "sw_wide"])
+def test_reader_matches_scipy(ckd_paths, kind):
+    path = ckd_paths[kind]
     nc3 = _native()
     ref = netcdf_file(path, mmap=False)
     with nc3.NativeReader(path) as r:
@@ -116,15 +115,15 @@ def test_update_var_template_fill(tmp_path):
     f.close()
 
 
-def test_ckd_loader_native_matches_scipy(monkeypatch):
+def test_ckd_loader_native_matches_scipy(ckd_paths, monkeypatch):
     """load_ckd_model must produce a bit-identical model whichever I/O
     engine parses the file (the native engine decodes to f64; read_exact
     converts back to the file dtype so load-time numerics like
-    np.log(pressure) and the grid_key content hash cannot diverge)."""
+    np.log(pressure) cannot diverge)."""
     from ecckd_tpu.io import nc3_native
     from ecckd_tpu.models import loader
 
-    path = LW_FSCK
+    path = ckd_paths["lw_fsck"]
     assert nc3_native.load_library() is not None
     m_native = loader.load_ckd_model(path, dtype=np.dtype(np.float32))
     monkeypatch.setattr(nc3_native, "load_library", lambda: None)
@@ -132,7 +131,7 @@ def test_ckd_loader_native_matches_scipy(monkeypatch):
 
     leaves_n, treedef_n = jax.tree_util.tree_flatten(m_native)
     leaves_s, treedef_s = jax.tree_util.tree_flatten(m_scipy)
-    assert treedef_n == treedef_s  # static metadata incl. grid_key equal
+    assert treedef_n == treedef_s  # static metadata equal
     for a, b in zip(leaves_n, leaves_s):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -7,7 +7,7 @@ output reaches the host sink exactly once, in order (SURVEY.md section 5.8).
 import numpy as np
 import jax
 
-from conftest import LW_FSCK, RFMIP_VMRS, make_atmosphere
+from conftest import RFMIP_VMRS, make_atmosphere
 from ecckd_tpu.gases import GasConcs
 from ecckd_tpu.models.loader import load_ckd_model
 from ecckd_tpu.parallel import mesh as pmesh
@@ -23,8 +23,8 @@ def _batch(ncol, nlay, seed):
     return (atm["plev"], atm["tlay"], atm["tlev"], atm["tsfc"], emis, concs)
 
 
-def test_chunked_stream_matches_single_shot():
-    model = load_ckd_model(LW_FSCK, dtype=np.float64)
+def test_chunked_stream_matches_single_shot(ckd_paths):
+    model = load_ckd_model(ckd_paths["lw_fsck"], dtype=np.float64)
     mesh = pmesh.make_column_mesh()
     assert mesh.devices.size == 8
     nlay, chunk, n_chunks = 12, 16, 4
@@ -35,7 +35,7 @@ def test_chunked_stream_matches_single_shot():
     @jax.jit
     def step(m, plev, tlay, tlev, tsfc, emis, concs):
         f = lw_fluxes(m, plev, tlay, tlev, tsfc, emis, concs,
-                      n_gauss_angles=1, backend="xla")
+                      n_gauss_angles=1)
         return (f.flux_up, f.flux_dn)
 
     seen = []
@@ -111,17 +111,17 @@ def test_scale_bench_resume(tmp_path):
     np.testing.assert_array_equal(resumed, full)
 
 
-def test_driver_metrics_and_validate(tmp_path):
+def test_driver_metrics_and_validate(ckd_paths, tmp_path):
     """--metrics-json writes a throughput/sanity record; --validate accepts
     physical inputs and rejects unphysical ones."""
     import json
     from ecckd_tpu.cli import ecckd_rfmip_lw
     from ecckd_tpu.io.rfmip import write_synthetic_rfmip
-    from conftest import LW_FSCK
     rf = str(tmp_path / "rfmip.nc")
     write_synthetic_rfmip(rf, nsite=4, nlay=12, nexp=1, seed=3)
     mpath = str(tmp_path / "metrics.json")
-    rc = ecckd_rfmip_lw.main([rf, LW_FSCK, "--output-dir", str(tmp_path),
+    rc = ecckd_rfmip_lw.main([rf, ckd_paths["lw_fsck"], "--output-dir",
+                              str(tmp_path),
                               "--metrics-json", mpath, "--validate"])
     assert rc == 0
     m = json.loads(open(mpath).read())

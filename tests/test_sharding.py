@@ -114,8 +114,8 @@ def test_uneven_columns_padded(lw_model, batch):
 
 
 def test_shard_map_columns_call(lw_model, batch):
-    """shard_columns_call (the fused-kernel multi-chip bridge) matches
-    unsharded execution; each device sees only its column shard."""
+    """shard_columns_call (the per-device-program bridge) matches unsharded
+    execution; each device sees only its column shard."""
     atm, concs = batch
     ncol = atm["tlay"].shape[0]
     emis = np.full(ncol, 0.98)
@@ -134,50 +134,11 @@ def test_shard_map_columns_call(lw_model, batch):
     np.testing.assert_array_equal(np.asarray(dn), np.asarray(single.flux_dn))
 
 
-def test_shard_map_fused_kernel_interpret(lw_model, batch):
-    """The fused Pallas LW kernel (interpret mode on the CPU mesh) under
-    the shard_columns_call bridge — the exact per-device program a pod
-    runs — matches the XLA path within fused-path tolerance, and sharded
-    fused == single-device fused bitwise."""
-    import jax.numpy as jnp
-    from ecckd_tpu.ops.pallas.lw import lw_fluxes_fused
-
-    atm, concs = batch
-    ncol = atm["tlay"].shape[0]
-    emis = np.full(ncol, 0.98)
-    args = (atm["plev"].astype(np.float32), atm["tlay"].astype(np.float32),
-            atm["tlev"].astype(np.float32), atm["tsfc"].astype(np.float32),
-            emis.astype(np.float32), concs)
-
-    def fused(plev, tlay, tlev, tsfc, e, c):
-        emis_gpt = jnp.broadcast_to(e[:, None].astype(jnp.float32),
-                                    (plev.shape[0], lw_model.ngpt))
-        return lw_fluxes_fused(lw_model, plev, tlay, tlev, tsfc, emis_gpt,
-                               c, n_gauss_angles=1, interpret=True)
-
-    single_up, single_dn = jax.jit(fused)(*args)
-
-    mesh = pmesh.make_column_mesh()
-    up, dn = jax.jit(lambda *a: pmesh.shard_columns_call(
-        fused, mesh, a, ncol))(*args)
-    # Sharded fused == single-device fused: identical per-device programs.
-    np.testing.assert_array_equal(np.asarray(up), np.asarray(single_up))
-    np.testing.assert_array_equal(np.asarray(dn), np.asarray(single_dn))
-
-    xla = jax.jit(lambda *a: lw_fluxes(
-        lw_model, *a, backend="xla"))(*args)
-    scale = float(np.abs(np.asarray(xla.flux_up)).max())
-    assert np.abs(np.asarray(up) - np.asarray(xla.flux_up)).max() \
-        <= 1e-4 * scale
-    assert np.abs(np.asarray(dn) - np.asarray(xla.flux_dn)).max() \
-        <= 1e-4 * scale
-
-
 def test_shard_columns_call_replicated_argnums_collision():
     """A replicated table whose leading extent EQUALS ncol must not be
     sharded over columns when pinned via replicated_argnums (the shape
     heuristic alone cannot tell it apart from a batch array — e.g. the
-    12-point h2o mole-fraction axis vs ncol == 12 in dryrun_multichip(6))."""
+    12-point h2o mole-fraction axis vs ncol == 12)."""
     import jax
     import jax.numpy as jnp
     from ecckd_tpu.parallel import mesh as pmesh

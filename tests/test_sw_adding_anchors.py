@@ -24,7 +24,7 @@ against mathematics that is independent of any transcription:
   level, and both equal mu0*S0 at TOA).
 
 Reference behavioral contract: SURVEY.md section 2.3 (external rte_sw,
-call site /root/reference/example/rfmip-rad-irf/ecckd_rfmip_sw.F90:148-154).
+call site rte-ecckd/example/rfmip-rad-irf/ecckd_rfmip_sw.F90:148-154).
 """
 import numpy as np
 import pytest
